@@ -8,7 +8,7 @@
 // (libpng), PPM/PGM, BMP(24/32).  Output is either float32 grayscale in
 // [0,1] (the device feed format) or interleaved RGB u8 (colorization).
 //
-// The TPU compute path never runs on the host; this library exists so image
+// The accelerator compute path never runs on the host; this library exists so image
 // decode keeps up with the accelerator when feeding batches (SURVEY.md §7
 // hard part 7: host/device split for ingest).
 

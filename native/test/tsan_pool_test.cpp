@@ -2,7 +2,7 @@
 // C++ gets TSAN in CI").  Exercises the public C ABI — concurrent
 // tsfm_load_batch calls with overlapping output buffers per image slot,
 // concurrent tsfm_exif / tsfm_image_info — under ThreadSanitizer.  Build +
-// run via native/build_tsan.sh (ci.sh nightly).
+// run via ci.sh nightly.
 #include <atomic>
 #include <cstdint>
 #include <cstdio>

@@ -2,7 +2,7 @@
 global Schur-complement BA on one device.
 
 Heavy for the 2-core CPU CI mesh, so it runs only with TPUSFM_SLOW=1
-(the TPU bench exercises this scale on hardware every round)."""
+(bench.py runs this scale on the GPU)."""
 
 import os
 

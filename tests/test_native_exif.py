@@ -41,7 +41,7 @@ def _build_exif_tiff() -> bytes:
     header = b"II" + struct.pack("<HI", 42, 8)
 
     # Build inner IFDs first to learn their offsets; two-pass for simplicity.
-    make = b"TpuCam\x00"
+    make = b"SfmCam\x00"
     model = b"ModelX100\x00"
     # Pass 1: assume offsets, compute sizes.
     ifd0_entries = lambda exif_off, gps_off: [
@@ -92,7 +92,7 @@ def test_native_exif(jpeg_with_exif):
     assert lat == pytest.approx(48 + 51 / 60 + 29.6 / 3600, abs=1e-9)
     assert lon == pytest.approx(2 + 17 / 60 + 40.2 / 3600, abs=1e-9)
     assert alt == pytest.approx(35.4)
-    assert info["make"] == "TpuCam"
+    assert info["make"] == "SfmCam"
     assert info["model"] == "ModelX100"
 
 
@@ -115,8 +115,8 @@ def test_image_record_uses_native_exif(jpeg_with_exif):
         pytest.skip("native library unavailable")
     from tpusfm.io import images as im_io
 
-    db = {"tpucam modelx100": 7.6}
+    db = {"sfmcam modelx100": 7.6}
     rec = im_io.read_image_record(jpeg_with_exif, sensor_db=db)
-    assert rec.camera_model == "TpuCam ModelX100"
+    assert rec.camera_model == "SfmCam ModelX100"
     assert rec.focal_px == pytest.approx(max(96, 64) * 23.5 / 7.6, rel=1e-6)
     assert rec.gps is not None and rec.gps[0] == pytest.approx(48.858, abs=1e-3)

@@ -89,33 +89,27 @@ def test_distributed_ba_matches_single_device():
     assert rel < 0.05
 
 
-def test_distributed_ba_pallas_path_matches_xla():
-    """The pallas obs-table path reduces in point space, so it runs sharded
-    under shard_map too (interpret mode on the CPU mesh)."""
-    s, args = _ba_problem()
-    O = len(s["obs_cam"])
-    m = mesh_mod.make_mesh(8)
-    ocam, opt, ouv, omask = dist_ba.shard_obs_table(
-        s["obs_cam"], s["obs_pt"], s["obs_uv"], np.ones(O, bool), 8
-    )
-    outs = {}
-    for impl in ("xla", "pallas"):
-        # dense_schur_max_dim=0: keep both sides on the PCG algorithm so the
-        # comparison isolates the pallas segment-sum kernels (the dense
-        # direct solve is a different — equally exact — algorithm and drifts
-        # along the scene's scale gauge while reaching the same cost).
-        cfg = ba.BAConfig(max_iters=5, impl=impl, pallas_interpret=True,
-                          dense_schur_max_dim=0)
-        outs[impl] = dist_ba.bundle_adjust_sharded(
-            m, obs_cam=ocam, obs_pt=opt, obs_uv=ouv, obs_mask=omask,
-            cfg=cfg, **args
-        )
-    _, rot_x, t_x, _, info_x = outs["xla"]
-    _, rot_p, t_p, _, info_p = outs["pallas"]
-    assert float(info_p["final_cost"]) < float(info_p["initial_cost"])
-    rel = abs(float(info_p["final_cost"]) - float(info_x["final_cost"])) / max(
-        float(info_x["final_cost"]), 1e-9
-    )
-    assert rel < 0.05
-    np.testing.assert_allclose(np.asarray(rot_p), np.asarray(rot_x), atol=5e-3)
-    np.testing.assert_allclose(np.asarray(t_p), np.asarray(t_x), atol=5e-3)
+def test_sharded_matching_runs_the_fused_kernel(monkeypatch):
+    """On GPUs dist_matching runs the Pallas matcher inside shard_map; here
+    the same path with the kernel in interpret mode on 4 CPU devices."""
+    from functools import partial
+
+    from tpusfm.matching import match as local_match
+    from tpusfm.ops import pallas_match
+
+    monkeypatch.setattr(local_match, "matcher_for", lambda platform: partial(
+        pallas_match.match_descriptors_fused, interpret=True))
+    P_, N = 8, 96
+    da = rng.integers(0, 256, (P_, N, 128)).astype(np.float32)
+    db = np.clip(da[:, ::-1] + rng.integers(-3, 4, (P_, N, 128)), 0, 255)
+    ma = np.ones((P_, N), bool)
+    idx_s, ok_s = dist_matching.match_pairs_sharded(
+        mesh_mod.make_mesh(4), jnp.asarray(da), jnp.asarray(db.astype(np.float32)),
+        jnp.asarray(ma), jnp.asarray(ma), quantized=True)
+    assert len(idx_s.sharding.device_set) == 4
+    idx_l, ok_l = local_match.match_descriptors(
+        jnp.asarray(da), jnp.asarray(db.astype(np.float32)), jnp.asarray(ma),
+        jnp.asarray(ma))
+    np.testing.assert_array_equal(np.asarray(ok_s), np.asarray(ok_l))
+    np.testing.assert_array_equal(np.asarray(idx_s), np.asarray(idx_l))
+    assert np.asarray(ok_l).mean() > 0.9

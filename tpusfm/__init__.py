@@ -1,6 +1,7 @@
-"""tpusfm — a TPU-native structure-from-motion / 3D-reconstruction framework.
+"""tpusfm — a structure-from-motion / 3D-reconstruction framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capability surface of the
+Built from scratch in JAX/XLA/Pallas, running on NVIDIA GPUs (and on the CPU
+for tests), with the capability surface of the
 reference C++ pipeline (RainbowXXX/3DReconstruction — see SURVEY.md):
 
 - ``tpusfm.core``      — SO3/SE3 Lie groups, camera models, triangulation,
@@ -19,7 +20,7 @@ reference C++ pipeline (RainbowXXX/3DReconstruction — see SURVEY.md):
 - ``tpusfm.io``        — PLY / scene JSON artifacts, EXIF focal priors, images
 - ``tpusfm.pipeline``  — staged, resumable pipeline orchestration + config
 - ``tpusfm.service``   — HTTP facade with SSE progress events (ref: src/main.cpp)
-- ``tpusfm.ops``       — Pallas TPU kernels for the hot paths
+- ``tpusfm.ops``       — image ops and the fused Pallas matcher (GPU)
 """
 
 __version__ = "0.1.0"

@@ -10,7 +10,7 @@ core.camera (the only model the reference pipeline actually instantiates);
 views declared with richer distortion are normalized THROUGH these
 transforms at ingest — undistort to ideal pinhole coordinates once, then
 the whole array pipeline runs distortion-free.  That keeps every BA block
-and obs table at a fixed parameter count (TPU fixed shapes) while
+and obs table at a fixed parameter count (static shapes) while
 accepting imagery from any of the factory's models.
 
 All transforms are fixed-iteration (XLA-friendly) and batched.

@@ -65,8 +65,8 @@ def _solve_epipolar_lstsq(x0n: jnp.ndarray, x1n: jnp.ndarray, w: jnp.ndarray):
 def _drop_smallest_singular(F: jnp.ndarray) -> jnp.ndarray:
     """Rank-2 projection without SVD: F2 = F - sigma3 u3 v3^T, where u3/v3
     are the smallest singular vectors from inverse iteration on F F^T / F^T F
-    (batched 3x3 SVD measured ~70ms per 16k on v5e — the hypothesis-solver
-    hot spot; this form is a handful of fused VPU ops)."""
+    (a batched 3x3 SVD is the hypothesis solver's hot spot; this form is a
+    handful of fused elementwise ops)."""
     from .triangulate import smallest_eigvec_sym
 
     Ft = jnp.swapaxes(F, -1, -2)
@@ -139,7 +139,8 @@ def essential_8pt(x0n: jnp.ndarray, x1n: jnp.ndarray, w: jnp.ndarray | None = No
 # Capability parity with OpenMVG's minimal solvers (linked libraries the
 # reference uses for AC-RANSAC filtering and essential estimation,
 # SURVEY.md §2.2).  Both are fully batched: polynomial roots come from the
-# Durand–Kerner sweeps in core.polynomial (TPU has no nonsymmetric eig),
+# Durand–Kerner sweeps in core.polynomial (JAX's nonsymmetric eig runs on
+# the CPU only),
 # and every root becomes an independent RANSAC hypothesis.
 # ---------------------------------------------------------------------------
 

@@ -93,7 +93,7 @@ def so3_right_jacobian(w: jnp.ndarray) -> jnp.ndarray:
     Jr(w) = I - (1-cos t)/t^2 [w]x + (t - sin t)/t^3 [w]x^2, with Taylor
     fallbacks below sqrt(eps).  Satisfies R(w + dw) ~= R(w) Exp(Jr(w) dw),
     i.e. d(R(w) p)/dw = -R(w) [p]x Jr(w) — the closed-form pose Jacobian
-    used by the fused BA linearization kernel (ops/obs_table.py)."""
+    of the BA camera-center prior terms."""
     theta2 = jnp.sum(w * w, axis=-1)
     small = theta2 < 1e-8
     theta2_safe = jnp.where(small, jnp.ones_like(theta2), theta2)

@@ -5,7 +5,7 @@ engine's AC-RANSAC localization (reference: engine->Process(),
 src/sparseBuilder/sparseBuilder.cpp:1579, which resects with P3P-RANSAC) and
 with cv::solvePnPRansac (src/actuator/SequentialActuator.h:175-177).
 
-TPU design: the quartic in the distance ratio is solved for the whole
+Batched design: the quartic in the distance ratio is solved for the whole
 hypothesis batch at once with the Durand–Kerner sweeps in core.polynomial —
 each 3-point sample yields up to 4 candidate poses; invalid roots yield
 low-scoring junk poses that lose the RANSAC argmax instead of branching.

@@ -3,13 +3,12 @@
 The reference's minimal solvers live inside OpenMVG/OpenCV (P3P resection,
 5-point essential, 7-point fundamental — linked libraries, SURVEY.md §2.2
 "OpenMVG libraries") and bottom out in sequential eigenvalue / companion-
-matrix routines.  TPU has no general nonsymmetric `eig`, and RANSAC needs
+matrix routines.  JAX's nonsymmetric `eig` runs on the CPU only, and RANSAC needs
 thousands of tiny independent solves, so we use the Durand–Kerner
 (Weierstrass) simultaneous-iteration method instead: a fixed number of
 branch-free sweeps that find ALL roots of each polynomial in a batch at
-once.  Complex arithmetic is carried as explicit (real, imag) float pairs —
-the TPU backend has no native complex support, and float pairs map straight
-onto the VPU.  Degenerate hypotheses produce garbage roots that simply lose
+once.  Complex arithmetic is carried as explicit (real, imag) float pairs,
+which stay plain fused elementwise float math.  Degenerate hypotheses produce garbage roots that simply lose
 the RANSAC argmax — no rejection branching.
 """
 

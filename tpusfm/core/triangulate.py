@@ -13,9 +13,8 @@ import jax.numpy as jnp
 
 def _chol_small(A: jnp.ndarray):
     """Unrolled batched Cholesky of a small SPD matrix (..., n, n) — pure
-    elementwise VPU ops.  XLA's batched `inv`/`solve` lower to pivoted LU
-    (measured ~37ms per 16k 9x9 inverses on v5e); the unrolled factorization
-    is ~free by comparison.  Returns the lower factor as an (n, n) python
+    elementwise ops.  XLA's batched `inv`/`solve` lower to pivoted LU
+    library calls; the unrolled factorization fuses into the caller.  Returns the lower factor as an (n, n) python
     grid of (...,) scalars."""
     n = A.shape[-1]
     L = [[None] * n for _ in range(n)]
@@ -53,8 +52,7 @@ def smallest_eigvec_sym(A: jnp.ndarray, iters: int = 6) -> jnp.ndarray:
     """Eigenvector of the smallest eigenvalue of a symmetric PSD matrix
     (..., n, n) by shifted inverse iteration.
 
-    On TPU, jnp.linalg.eigh lowers to a huge HLO (minutes of compile on the
-    remote-compile backend) and runs a full spectral decomposition; DLT only
+    jnp.linalg.eigh runs a full spectral decomposition; DLT only
     needs the bottom eigenvector, and the normal matrices here are tiny
     (3x3 / 4x4 / 9x9), so an unrolled Cholesky + a few triangular solves is
     both faster and ~100x cheaper to compile."""
@@ -80,8 +78,8 @@ def triangulate_two_view(P0: jnp.ndarray, P1: jnp.ndarray, x0: jnp.ndarray, x1: 
     normalized coords).  x0, x1: (N, 2) measurements.  Returns (N, 3).
 
     Solves the 4x4 homogeneous system per point via the eigenvector of A^T A
-    with the smallest eigenvalue (symmetric eigendecomposition batches well on
-    TPU; full SVD of a tall A does not).
+    with the smallest eigenvalue (a symmetric eigenproblem of the 4x4 normal
+    matrix batches better than a full SVD of a tall A).
     """
     rows = []
     for P, x in ((P0, x0), (P1, x1)):

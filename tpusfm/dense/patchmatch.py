@@ -7,14 +7,13 @@ The plane-sweep stage (tpusfm.dense.depth) recovers fronto-parallel depth;
 this module refines it with per-pixel slanted planes, which removes the
 staircase/fattening bias on oblique surfaces.
 
-TPU-native formulation (SURVEY.md §7 hard part 6): PatchMatch's sequential
+Array formulation (SURVEY.md §7 hard part 6): PatchMatch's sequential
 spatial propagation becomes *checkerboard sweeps* — every pixel of one
 parity updates simultaneously from its 4 neighbors of the other parity, so
 each half-iteration is a fully regular, vectorizable array program.
 
-Performance design (round 3; round 2's version evaluated every candidate on
-the FULL pixel grid with 4-gather bilinear reference sampling and faulted
-the TPU worker when vmapped over 2 views at 480x640):
+Performance design (an earlier version evaluated every candidate on the
+FULL pixel grid with 4-gather bilinear reference sampling):
 
   - **parity compaction**: each half-sweep gathers the active checkerboard
     parity into dense (H, W/2) fields, evaluates candidates there, and
@@ -33,8 +32,7 @@ the TPU worker when vmapped over 2 views at 480x640):
     the only remaining gathers per candidate are the unavoidable
     source-texture samples.
 
-Round-4 sampling redesign: XLA's per-element gather rate (~100-135 M/s on
-v5e, scripts/gather_ab3.py) IS the stage's wall clock, so the candidate
+Sampling design: per-element gathers dominate the stage, so the candidate
 evaluation samples with ONE gather each from a pre-upsampled source
 pyramid ("up8": 1/16-px effective precision, built by gather-free XLA
 resize convs) instead of 4-gather bilinear; the checkerboard parity
@@ -92,10 +90,9 @@ class PatchMatchConfig:
     # alternation — halves propagation sampling; one extra iteration
     # recovers the normal quality at ~55% of the old cost), 4 = all.
     neighbors: int = 2
-    # Source sampling for candidate NCC evaluation.  XLA gathers are the
-    # stage's wall clock (~100-130 M gathers/s per-element floor on v5e,
-    # scripts/gather_ab3.py) and bilinear costs FOUR gathers per window
-    # sample:
+    # Source sampling for candidate NCC evaluation.  Gathers dominate the
+    # stage and bilinear costs FOUR gathers per window sample (whether
+    # "up8" still beats "bilinear" on the GPU is open, ROADMAP.md):
     #   "bilinear" — exact 4-tap sampling;
     #   "nearest"  — 1 gather, half-pixel quantization (slant/normal
     #                recovery degrades: 20 deg median vs 13 with bilinear);
@@ -118,8 +115,7 @@ def _window_offsets(cfg: PatchMatchConfig) -> list[tuple[int, int]]:
         # estimate and the inner cross restores near-field depth
         # sensitivity — measured 13.4 deg median normal error / 0.0026
         # median relative depth error at 21 samples vs 15.3 deg / 0.0026
-        # for the full 25-sample square at radius 4
-        # (scripts/pm_window_ab.py).
+        # for the full 25-sample square at radius 4.
         offs = [(dy, dx) for dy, dx in offs if abs(dy) + abs(dx) <= r]
         offs += [(-r, -r), (-r, r), (r, -r), (r, r)]
         if d > 1:
@@ -162,12 +158,8 @@ def bilinear_flat(flat, src_off, vv, uu, H: int, W: int):
 
     flat (1, S*H*W); src_off = s*H*W per element (broadcastable to vv);
     vv/uu float coords of any shape.  All four taps ride ONE
-    take_along_axis call on the single-row flattened operand — 135 M
-    gathers/s on v5e vs 88 M/s for 2D advanced indexing (scripts/
-    gather_ab.py, gather_ab3.py).  ~100-135 M gathers/s is the genuine XLA
-    per-element gather floor on this chip (every index form measures the
-    same once loop-hoisting artifacts are excluded); the bigger lever is
-    needing FEWER gathers — see make_sampler's "upN" modes."""
+    take_along_axis call on the single-row flattened operand; the bigger
+    lever is needing FEWER gathers — see make_sampler's "upN" modes."""
     v0 = jnp.clip(jnp.floor(vv).astype(jnp.int32), 0, H - 2)
     u0 = jnp.clip(jnp.floor(uu).astype(jnp.int32), 0, W - 2)
     fv = jnp.clip(vv - v0, 0.0, 1.0)
@@ -241,9 +233,9 @@ def _parity_even(H: int, phase):
 def _gather_parity(x, phase):
     """Checkerboard gather WITHOUT a gather op: the active cells of `phase`
     are column offset (y+phase)%2 in each row, so two strided lane slices +
-    one select replace the take_along_axis (XLA gathers cost ~7 cycles per
-    ELEMENT on TPU — ~100 M/s — while strided slices and selects run at VPU
-    width).  x (H, W[, k]) -> (H, Wh[, k])."""
+    one select replace the take_along_axis (a gather pays per element;
+    strided slices and selects are plain fused elementwise work).
+    x (H, W[, k]) -> (H, Wh[, k])."""
     H = x.shape[0]
     even = _parity_even(H, phase)
     a = x[:, 0::2]

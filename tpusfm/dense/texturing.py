@@ -142,11 +142,11 @@ def build_atlas(verts, faces, face_view, images, K, R, t,
 
 def write_textured_obj(out_dir, name, verts, faces, uv, atlas):
     """OBJ + MTL + PNG triple."""
-    from PIL import Image
+    from ..io.images import write_png
 
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    Image.fromarray(atlas).save(out / f"{name}.png")
+    write_png(out / f"{name}.png", atlas)
     (out / f"{name}.mtl").write_text(
         f"newmtl textured\nKa 1 1 1\nKd 1 1 1\nmap_Kd {name}.png\n"
     )

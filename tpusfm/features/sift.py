@@ -1,6 +1,6 @@
 """SIFT-class feature detection + description, batched on-device.
 
-TPU-native rebuild of the reference's native feature kernel:
+Array-program rebuild of the reference's native feature kernel:
 - vlfeat scale-space + DoG detector (src/nonFree/sift/vl/sift.c:884-1456)
 - orientation assignment (sift.c:1570) and 4x4x8 descriptor (sift.c:1931)
 - the OpenMVG describer wrapper semantics: presets NORMAL/HIGH/ULTRA,
@@ -9,7 +9,7 @@ TPU-native rebuild of the reference's native feature kernel:
 
 Design (SURVEY.md §7 layer 3, hard part 4 — statistical, not bit-exact,
 parity with vlfeat):
-- The Gaussian pyramid is XLA separable convolution (MXU/VPU) over a static
+- The Gaussian pyramid is XLA separable convolution over a static
   octave loop; shapes halve per octave.
 - Extremum detection is a vectorized 26-neighbor scan via reduce_window
   min/max pooling, not a scalar triple loop.
@@ -18,8 +18,8 @@ parity with vlfeat):
   (vlfeat runs at most 5 data-dependent iterations).
 - Orientation histograms and descriptors avoid scatter entirely: gradients
   are gathered on a fixed sample grid per keypoint (the pyramid-level index
-  fused into the gather — slicing a per-keypoint map costs ~1s/1k kps on
-  TPU) and soft-binned with MXU matmuls, instead of vlfeat's per-pixel
+  fused into the gather, never a per-keypoint map slice) and soft-binned
+  with matmuls, instead of vlfeat's per-pixel
   trilinear scatter accumulation.
 - Up to ``n_orientations`` peaks per keypoint (80%-of-max rule like
   vlfeat's 4-peak emission); default 1 keeps capacity flat.
@@ -37,9 +37,9 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from ..ops import image as imops
+from ..utils.pytree import pytree_dataclass
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +62,7 @@ class SiftConfig:
     desc_grid: int = 12        # sample grid side for the descriptor window
                                # (12x12 matches 16x16 on registration/ATE
                                # quality at 44% fewer gathers — the describe
-                               # stage is gather-bound on TPU)
+                               # stage is gather-heavy)
     magnif: float = 3.0        # descriptor bin width in units of sigma
     refine_iters: int = 4
     n_orientations: int = 1    # emit up to this many orientation peaks per
@@ -85,7 +85,7 @@ def preset(name: str, **overrides) -> SiftConfig:
     return dataclasses.replace(cfg, **overrides)
 
 
-@struct.dataclass
+@pytree_dataclass
 class Features:
     """Fixed-capacity per-image feature set.
 
@@ -156,7 +156,7 @@ def _extrema_score(dogs: jnp.ndarray, cfg: SiftConfig) -> jnp.ndarray:
     def _axis_ext(x, axis, op):
         # Separable 3-tap window extremum via two elementwise ops (the 27-tap
         # reduce_window decomposes exactly for max/min and lowers to cheap
-        # VPU shifts instead of a windowed reduction).
+        # elementwise shifts instead of a windowed reduction).
         lo = jnp.roll(x, 1, axis=axis)
         hi = jnp.roll(x, -1, axis=axis)
         # Wrap-around values are masked by the border kill below for H/W and
@@ -187,8 +187,8 @@ def _topk_keypoints(score: jnp.ndarray, k: int):
     flat = score.reshape(b, -1)
     kk = min(k, flat.shape[-1])
     if flat.shape[-1] > 4 * kk:
-        # approx_max_k lowers to the TPU-native partial-reduction selector
-        # (far cheaper than the sort behind top_k on ~1M-element octaves).
+        # approx_max_k: a partial-reduction selector, cheaper than the full
+        # sort behind top_k on ~1M-element octaves.
         # Recall ~0.95 only drops near-threshold candidates, which the
         # global top-max_features cut discards anyway.
         vals, idx = jax.lax.approx_max_k(flat, kk, recall_target=0.95)
@@ -208,9 +208,8 @@ def _refine_one(dog: jnp.ndarray, si, yi, xi, cfg: SiftConfig):
     n_dog, h, w = dog.shape
     S = n_dog - 2
     # 3x3x3 neighborhood offsets, flattened: the cube load is ONE 27-element
-    # scalar gather (slice-size-1 gathers are TPU's fast path; the
-    # dynamic_slice form this replaces serialized per keypoint and cost
-    # ~25x more on device).
+    # scalar gather (the dynamic_slice form it replaces serialized per
+    # keypoint).
     off = jnp.stack(
         jnp.meshgrid(jnp.arange(-1, 2), jnp.arange(-1, 2), jnp.arange(-1, 2),
                      indexing="ij"), axis=-1,
@@ -235,9 +234,8 @@ def _refine_one(dog: jnp.ndarray, si, yi, xi, cfg: SiftConfig):
         return g, H
 
     def solve(g, H):
-        # Closed-form symmetric 3x3 solve (Cramer / adjugate): pure VPU ops.
-        # The batched LU behind jnp.linalg.solve measured ~55 ms per refine
-        # iteration over 41k keypoints on v5e; this form is ~free.
+        # Closed-form symmetric 3x3 solve (Cramer / adjugate): elementwise
+        # ops that fuse, instead of the batched LU behind jnp.linalg.solve.
         a, b_, c_ = H[0, 0] + 1e-10, H[0, 1], H[0, 2]
         e, f_ = H[1, 1] + 1e-10, H[1, 2]
         i_ = H[2, 2] + 1e-10
@@ -365,7 +363,7 @@ def _descriptor_one(grad, lvl, x, y, sigma, theta, cfg: SiftConfig,
                     h_lim=None, w_lim=None):
     """128-D descriptor for one keypoint (vl/sift.c:1931-2080), sampled on a
     fixed GxG grid in the rotated keypoint frame and soft-binned into
-    4 x 4 x 8 via MXU matmuls instead of trilinear scatter.  mag/ang are
+    4 x 4 x 8 via matmuls instead of trilinear scatter.  mag/ang are
     (L, H, W) stacks with the level inside the gather."""
     NBP, NBO = 4, 8
     G = cfg.desc_grid
@@ -388,7 +386,7 @@ def _descriptor_one(grad, lvl, x, y, sigma, theta, cfg: SiftConfig,
     # Two-step contraction: spatial weights -> (S, 16), then ONE (16, S) @
     # (S, 8) matmul per keypoint.  (The naive 4-operand einsum let XLA pick
     # a contraction order with large per-keypoint intermediates — this form
-    # is a clean MXU batched matmul under vmap.)
+    # is a clean batched matmul under vmap.)
     S = G * G
     wxy = (wy[..., :, None] * wx[..., None, :]).reshape(S, NBP * NBP)  # (S, 16)
     weighted = wxy * (m * wgt).reshape(S, 1)
@@ -434,7 +432,7 @@ def sift_features(images: jnp.ndarray, cfg: SiftConfig = SiftConfig(),
     slots (parity: the reference's per-image feature mask,
     sparseBuilder.cpp:701-740).
 
-    The TPU equivalent of SIFT_Image_describer::Describe
+    The array-program equivalent of SIFT_Image_describer::Describe
     (src/nonFree/sift/SIFT_describer.hpp:126-216): one jit-able array program
     instead of an OpenMP loop over octaves and keypoints.
 

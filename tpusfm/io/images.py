@@ -18,6 +18,8 @@ from pathlib import Path
 import numpy as np
 
 IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".ppm", ".pgm"}
+# Binary PGM/PPM (P5/P6) are read with numpy; every other format needs PIL.
+PNM_EXTS = {".ppm", ".pgm"}
 
 # Compact sensor-width database (mm) — the reference loads the OpenMVG
 # sensor_width_camera_database.txt (sparseBuilder.h:20); a full file can be
@@ -96,6 +98,89 @@ def _gps_of(exif) -> tuple[float, float, float] | None:
         return None
 
 
+def _pil_image(what: str):
+    """PIL's Image module, or an ImportError that names what needed it."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{what} needs PIL (Pillow), which is not "
+                          "installed; binary PGM/PPM (P5/P6) need nothing "
+                          "beyond numpy") from e
+    return Image
+
+
+def _pnm_header(f):
+    """Parse a binary PNM header -> (magic, width, height, maxval)."""
+    fields: list[bytes] = []
+    while len(fields) < 4:
+        line = f.readline()
+        if not line:
+            raise ValueError(f"truncated PNM header in {f.name}")
+        fields += line.split(b"#", 1)[0].split()
+    magic = fields[0].decode()
+    if magic not in ("P5", "P6"):
+        raise ValueError(f"{f.name}: only binary PGM/PPM (P5/P6) are "
+                         f"supported, not {magic}")
+    return magic, int(fields[1]), int(fields[2]), int(fields[3])
+
+
+def read_pnm(path: str | Path) -> np.ndarray:
+    """Binary PGM (P5) -> (H, W), PPM (P6) -> (H, W, 3); uint8 for
+    maxval < 256, big-endian 16-bit samples as uint16 otherwise."""
+    with open(path, "rb") as f:
+        magic, w, h, maxval = _pnm_header(f)
+        dtype = np.dtype(np.uint8) if maxval < 256 else np.dtype(">u2")
+        shape = (h, w) if magic == "P5" else (h, w, 3)
+        data = np.frombuffer(f.read(int(np.prod(shape)) * dtype.itemsize),
+                             dtype)
+    if data.size != np.prod(shape):
+        raise ValueError(f"{path}: truncated PNM data")
+    return data.reshape(shape).astype(np.uint8 if maxval < 256 else np.uint16)
+
+
+def write_pnm(path: str | Path, img: np.ndarray) -> None:
+    """uint8 (H, W) -> binary PGM, (H, W, 3) -> binary PPM."""
+    img = np.asarray(img, np.uint8)
+    magic = "P5" if img.ndim == 2 else "P6"
+    with open(path, "wb") as f:
+        f.write(f"{magic}\n{img.shape[1]} {img.shape[0]}\n255\n".encode())
+        f.write(np.ascontiguousarray(img).tobytes())
+
+
+def write_png(path: str | Path, img: np.ndarray) -> None:
+    """uint8 (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA -> PNG, encoded
+    with zlib (no PIL)."""
+    import struct
+    import zlib
+
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape[:2]
+    color = {2: 0, 3: {3: 2, 4: 6}.get(img.shape[-1])}.get(img.ndim)
+    if color is None:
+        raise ValueError(f"cannot write an image of shape {img.shape} as PNG")
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], 1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    Path(path).write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+        + chunk(b"IEND", b""))
+
+
+def _pnm_gray(path) -> np.ndarray:
+    """Grayscale float32 in [0, 1] of a PGM/PPM (same luma weights as the
+    native decoder)."""
+    raw = read_pnm(path)
+    a = raw.astype(np.float32) / (65535.0 if raw.dtype == np.uint16 else 255.0)
+    if a.ndim == 3:
+        a = 0.299 * a[..., 0] + 0.587 * a[..., 1] + 0.114 * a[..., 2]
+    return a.astype(np.float32)
+
+
 def list_images(directory: str | Path) -> list[Path]:
     """Sorted image listing (parity: list_files + computeIndexFromImageNames,
     sparseBuilder.cpp:258-312 — stable name order defines view indices)."""
@@ -109,12 +194,16 @@ def read_image_record(
     focal_prior_px: float | None = None,
     default_fov_deg: float = 55.0,
 ) -> ImageRecord:
-    from PIL import Image
-
     sensor_db = sensor_db or BUILTIN_SENSOR_DB
-    with Image.open(path) as img:
-        w, h = img.size
-        exif = _exif_of(img)
+    if Path(path).suffix.lower() in PNM_EXTS:
+        with open(path, "rb") as f:
+            _, w, h, _ = _pnm_header(f)
+        exif = {}
+    else:
+        Image = _pil_image(f"reading {Path(path).suffix} images")
+        with Image.open(path) as img:
+            w, h = img.size
+            exif = _exif_of(img)
     # Prefer the native C++ EXIF parser for JPEGs (tsfm_exif — the
     # counterpart of the reference's Exif_IO_EasyExif); PIL covers the rest.
     nat = None
@@ -157,7 +246,7 @@ def read_image_record(
 
 def _native_batch(paths, want_gray: bool, want_rgb: bool):
     """Try the native C++ worker-pool decoder (native/src/ingest.cpp) for a
-    uniform-size batch; None -> caller falls back to PIL."""
+    uniform-size batch; None -> caller falls back to numpy / PIL."""
     from . import native_ingest
 
     if not paths or not native_ingest.available():
@@ -170,23 +259,27 @@ def _native_batch(paths, want_gray: bool, want_rgb: bool):
     if res is None:
         return None
     gray, rgb, status = res
-    if not status.all():  # mixed sizes/undecodable -> PIL path handles it
+    if not status.all():  # mixed sizes/undecodable -> fallback handles it
         return None
     return gray, rgb
 
 
 def load_images_gray(paths, target_size: tuple[int, int] | None = None) -> np.ndarray:
     """Load images as (V, H, W) float32 grayscale in [0, 1].  All images must
-    share one size (or are resized to target_size).  Uses the native C++
-    threaded decoder when available, PIL otherwise."""
-    from PIL import Image
-
+    share one size (or are resized to target_size, which needs PIL).  Uses
+    the native C++ threaded decoder when available; otherwise numpy for
+    PGM/PPM and PIL for the other formats."""
     if target_size is None:
         res = _native_batch(list(paths), True, False)
         if res is not None:
             return res[0]
     out = []
     for p in paths:
+        if target_size is None and Path(p).suffix.lower() in PNM_EXTS:
+            out.append(_pnm_gray(p))
+            continue
+        Image = _pil_image(f"reading {Path(p).suffix} images"
+                           if target_size is None else "resizing images")
         img = Image.open(p).convert("L")
         if target_size is not None:
             img = img.resize((target_size[1], target_size[0]))
@@ -196,6 +289,7 @@ def load_images_gray(paths, target_size: tuple[int, int] | None = None) -> np.nd
         # Resize everything to the most common shape.
         from collections import Counter
 
+        Image = _pil_image("resizing images of mixed sizes")
         target = Counter(a.shape for a in out).most_common(1)[0][0]
         out = [
             np.asarray(Image.fromarray((a * 255).astype(np.uint8)).resize((target[1], target[0])), np.float32) / 255.0
@@ -206,14 +300,20 @@ def load_images_gray(paths, target_size: tuple[int, int] | None = None) -> np.nd
 
 
 def load_images_rgb(paths, target_size: tuple[int, int] | None = None) -> np.ndarray:
-    from PIL import Image
-
     if target_size is None:
         res = _native_batch(list(paths), False, True)
         if res is not None:
             return res[1]
     out = []
     for p in paths:
+        if target_size is None and Path(p).suffix.lower() in PNM_EXTS:
+            a = read_pnm(p)
+            if a.dtype != np.uint8:
+                a = (a >> 8).astype(np.uint8)
+            out.append(np.repeat(a[..., None], 3, -1) if a.ndim == 2 else a)
+            continue
+        Image = _pil_image(f"reading {Path(p).suffix} images"
+                           if target_size is None else "resizing images")
         img = Image.open(p).convert("RGB")
         if target_size is not None:
             img = img.resize((target_size[1], target_size[0]))

@@ -3,14 +3,20 @@
 The reference decodes images in C++ inside an OpenMP loop
 (sparseBuilder.cpp:679-752 via OpenMVG ReadImage); tpusfm's equivalent is
 native/src/ingest.cpp — a worker-pool JPEG/PNG/PNM/BMP decoder behind a C
-ABI.  This module loads it lazily (building it on first use when a
-compiler is available) and exposes batch loaders; tpusfm.io.images falls
-back to PIL when the library is unavailable.
+ABI.  This module loads it lazily and exposes batch loaders; tpusfm.io.images
+falls back to numpy / PIL when the library is unavailable.
+
+The library is built from the tracked sources only: a stamp beside it holds
+the hash of native/src and native/build.sh, and a library whose stamp does
+not match (or that has none, like one left from another checkout) is
+rebuilt before it is loaded, or not loaded at all when the build fails.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import os
 import subprocess
 from pathlib import Path
 
@@ -22,6 +28,40 @@ _TRIED = False
 _ROOT = Path(__file__).resolve().parent.parent.parent
 _LIB_PATH = _ROOT / "native" / "lib" / "libtpusfm_ingest.so"
 _BUILD_SH = _ROOT / "native" / "build.sh"
+_STAMP = _LIB_PATH.with_name(_LIB_PATH.name + ".stamp")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for p in [_BUILD_SH, *sorted((_ROOT / "native" / "src").glob("*"))]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()
+
+
+def _build_if_stale() -> bool:
+    """Make the library match the tracked sources; False if it cannot."""
+    if not _BUILD_SH.exists():
+        return False
+    want = _source_hash()
+    if _LIB_PATH.exists() and _STAMP.exists() and _STAMP.read_text() == want:
+        return True
+    _STAMP.unlink(missing_ok=True)
+    _LIB_PATH.unlink(missing_ok=True)
+    # Build under a private name and rename: concurrent processes (test
+    # workers) never load a half-written library.
+    tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.tmp")
+    try:
+        subprocess.run(["sh", str(_BUILD_SH), str(tmp)], check=True,
+                       capture_output=True, timeout=300)
+        os.replace(tmp, _LIB_PATH)
+    except (OSError, subprocess.SubprocessError):
+        tmp.unlink(missing_ok=True)
+        return False
+    stamp_tmp = _STAMP.with_name(f"{_STAMP.name}.{os.getpid()}.tmp")
+    stamp_tmp.write_text(want)
+    os.replace(stamp_tmp, _STAMP)
+    return True
 
 
 def _load() -> ctypes.CDLL | None:
@@ -29,13 +69,7 @@ def _load() -> ctypes.CDLL | None:
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    if not _LIB_PATH.exists() and _BUILD_SH.exists():
-        try:
-            subprocess.run(["sh", str(_BUILD_SH)], check=True,
-                           capture_output=True, timeout=300)
-        except Exception:
-            return None
-    if not _LIB_PATH.exists():
+    if not _build_if_stale():
         return None
     try:
         lib = ctypes.CDLL(str(_LIB_PATH))
@@ -82,8 +116,6 @@ def load_batch(paths, width: int, height: int, gray: bool = True,
     lib = _load()
     if lib is None:
         return None
-    import os
-
     n = len(paths)
     n_threads = n_threads or (os.cpu_count() or 2)
     c_paths = (ctypes.c_char_p * n)(*[str(p).encode() for p in paths])

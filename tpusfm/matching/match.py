@@ -2,10 +2,9 @@
 
 The reference delegates to OpenMVG collection matchers (cascade hashing L2 /
 HNSW, src/sparseBuilder/sparseBuilder.cpp:909-963, ratio 0.8 at .cpp:812).
-On TPU, approximate structures lose to the MXU: an exact descriptor distance
-matrix is a (Na x 128) @ (128 x Nb) matmul — batched over pairs it saturates
-the systolic array, and exactness removes the recall loss of hashing
-(SURVEY.md §7 design stance (d)).
+Here the exact descriptor distance is a (Na x 128) @ (128 x Nb) matrix
+product batched over pairs, and exactness removes the recall loss of
+hashing (SURVEY.md §7 design stance (d)).
 
 All functions are jit-able with fixed capacities; invalid feature slots are
 masked to +inf distance.
@@ -23,7 +22,7 @@ INF = jnp.float32(3.4e38)
 
 def distance_matrix(da: jnp.ndarray, db: jnp.ndarray) -> jnp.ndarray:
     """Squared-L2 distance matrix via the matmul identity
-    |a-b|^2 = |a|^2 + |b|^2 - 2 a.b  — MXU-native. (..., Na, D) x (..., Nb, D)
+    |a-b|^2 = |a|^2 + |b|^2 - 2 a.b.  (..., Na, D) x (..., Nb, D)
     -> (..., Na, Nb)."""
     a2 = jnp.sum(da * da, axis=-1, keepdims=True)
     b2 = jnp.sum(db * db, axis=-1, keepdims=True)
@@ -67,6 +66,37 @@ def match_descriptors(
         mutual = jnp.take_along_axis(j1, i1, axis=-1) == jnp.arange(da.shape[-2])
         ok = ok & mutual
     return i1.astype(jnp.int32), ok
+
+
+def _match_descriptors_xla(da, db, mask_a, mask_b, ratio, cross_check,
+                           quantized):
+    del quantized  # exact at any precision the CPU runs
+    return match_descriptors(da, db, mask_a, mask_b, ratio=ratio,
+                             cross_check=cross_check)
+
+
+def matcher_for(platform: str):
+    """The batched matcher that runs on `platform`: the fused Pallas kernel
+    on GPUs (ops/pallas_match.py), which never writes the (Na, Nb) distance
+    matrix to device memory, and the XLA reduction of match_descriptors on
+    the CPU.  This is the one place the choice is made."""
+    if platform == "gpu":
+        from ..ops import pallas_match
+
+        return pallas_match.match_descriptors_fused
+    if platform == "cpu":
+        return _match_descriptors_xla
+    raise ValueError(f"no descriptor matcher for platform {platform!r}")
+
+
+def match_batch(da, db, mask_a, mask_b, ratio: float = 0.8,
+                cross_check: bool = True, quantized: bool = False):
+    """match_descriptors over a batch of pairs (P, Na, D) x (P, Nb, D) on
+    the default backend's matcher.  quantized=True declares u8-grid
+    descriptors (SIFT), which the GPU kernel multiplies exactly in bf16."""
+    return matcher_for(jax.default_backend())(
+        da, db, mask_a, mask_b, ratio=ratio, cross_check=cross_check,
+        quantized=quantized)
 
 
 def match_counts(idx: jnp.ndarray, valid: jnp.ndarray) -> jnp.ndarray:

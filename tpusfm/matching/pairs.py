@@ -9,7 +9,7 @@ reference's scale lever for long sequences (SURVEY.md §5 long-context analog).
 exhaustive default + scalable matcher methods (cascade hashing / HNSW,
 sparseBuilder.cpp:909-944): at collection sizes where exhaustive pairing is
 off the table and contiguous pairing is pure odometry, a coarse global
-descriptor per view (pooled SIFT, one MXU matmul for all-pairs similarity)
+descriptor per view (pooled SIFT, one matmul for all-pairs similarity)
 proposes top-k revisit candidates — loop closure enters through the pair
 list, and the downstream ratio-test + geometric filter verify each
 candidate as usual.

@@ -1,9 +1,9 @@
 """Image array ops: separable Gaussian blur, resampling, bilinear gather.
 
-TPU-native replacements for the vlfeat image kernels
+Replacements for the vlfeat image kernels
 (src/nonFree/sift/vl/imopv.c: vl_imconvcol — column convolution with SSE2
 fast paths): here convolution is expressed as XLA `conv_general_dilated`,
-which the compiler maps onto the MXU/VPU directly, so no hand-SIMD is needed
+which the compiler lowers for the device directly, so no hand-SIMD is needed
 (SURVEY.md §2.2).
 """
 
@@ -89,8 +89,7 @@ def bilinear_sample_level(vol: jnp.ndarray, lvl, y: jnp.ndarray, x: jnp.ndarray,
                           h_lim=None, w_lim=None) -> jnp.ndarray:
     """Bilinear gather from one level of a stack vol (L, H, W) at float
     coords y, x — the level index is part of the gather, so vmapping over
-    keypoints never materializes a per-keypoint (H, W) slice (profiled at
-    ~0.8 s per 1k keypoints on TPU with the slice-then-sample form).
+    keypoints never materializes a per-keypoint (H, W) slice.
 
     h_lim/w_lim (optional traced int scalars) clamp the sample coordinates
     to a sub-rectangle [0, h_lim) x [0, w_lim) — used when levels of
@@ -208,8 +207,8 @@ def bilinear_sample_level_ch(vol: jnp.ndarray, lvl, y: jnp.ndarray, x: jnp.ndarr
                              h_lim=None, w_lim=None) -> jnp.ndarray:
     """`bilinear_sample_level` over a channel-packed stack vol (L, H, W, C):
     one gather row fetches all C channels (the SIFT describe stage packs
-    magnitude+angle to halve its gather count — gather cost on TPU is per
-    ROW, not per byte).  Returns (..., C)."""
+    magnitude+angle to halve its gather count — a gather pays per row more
+    than per byte).  Returns (..., C)."""
     h, w = vol.shape[-3:-1]
     hm = (h - 1.0) if h_lim is None else (h_lim - 1.0)
     wm = (w - 1.0) if w_lim is None else (w_lim - 1.0)

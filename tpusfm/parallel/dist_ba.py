@@ -2,7 +2,7 @@
 
 SURVEY.md §2.3 item 4: the observation table is partitioned across devices;
 each device assembles partial normal-equation blocks for its observation
-shard, psum reduces the camera system and the point blocks over ICI, and
+shard, psum reduces the camera system and the point blocks across devices, and
 the (small, replicated) preconditioned-CG camera solve proceeds identically
 on every device.  Point elimination stays embarrassingly parallel.
 
@@ -70,10 +70,6 @@ def bundle_adjust_sharded(
             P(), P(), P(), P(),       # free/group + GPS priors (replicated)
         ),
         out_specs=(P(), P(), P(), P(), P()),
-        # The pallas obs-table kernels can't annotate their out_shapes with
-        # vma; correctness of the replicated outputs is covered by the
-        # equivalence tests against the single-device path.
-        check_vma=False,
     )
     def _run(intr, rot, t, cmask, pts, pmask, ocam, opt, ouv, omask, freem,
              cgrp, ppos, pw):

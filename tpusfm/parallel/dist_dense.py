@@ -30,11 +30,10 @@ from ..dense import depth as depth_mod
 def _sweep_packed(imgs, Ks, sidx, R_rel, t_rel, inv_depths, cfg):
     """Sweep over a (local) batch of packed per-view inputs.
 
-    lax.map, NOT vmap: the sweep is bilinear-gather-bound and XLA's gather
-    lowering degrades ~1.45x when the operand grows a vmap batch dim
-    (measured scripts/dense_breakdown.py: 2.62 s/view vmapped vs 1.81 s
-    single).  The views are compute-bound anyway, so sequential execution
-    inside one dispatch loses nothing."""
+    lax.map, NOT vmap: the sweep is gather-heavy and a vmap batch dim on
+    the gather operand gave XLA a slower gather lowering.  Each view is a
+    large program already, so sequential execution inside one dispatch
+    loses little."""
 
     def sweep(x):
         s, Rr, tr, d = x

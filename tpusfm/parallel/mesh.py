@@ -2,8 +2,8 @@
 
 The reference is single-host, single-process (SURVEY.md §2.3): its only
 parallelism is OpenMP threads.  This module is the framework's NCCL/MPI
-equivalent, built on jax.sharding: a named mesh over ICI (intra-slice) /
-DCN (multi-slice), with the axes the SfM pipeline shards over:
+equivalent, built on jax.sharding: a named mesh over the devices of one
+host or several, with the axes the SfM pipeline shards over:
 
 - ``pairs``  — view pairs for matching (DP over the O(N^2) pair list)
 - ``obs``    — observation blocks for distributed bundle adjustment

@@ -5,7 +5,7 @@ SURVEY.md §5 'long-context' analog: the reference bounds the O(N^2) pair
 problem with windowed CONTIGUOUS pairs (sparseBuilder.cpp:784-797); at pod
 scale tpusfm instead keeps ALL pairs but never gathers all descriptors to
 one device — each device holds a view shard, and D ring steps rotate a
-copy of the shards around the mesh (lax.ppermute over ICI) while every
+copy of the shards around the mesh (lax.ppermute) while every
 device matches its resident views against the visiting shard.  Per-device
 memory stays O(V/D * N * 128) regardless of collection size.
 

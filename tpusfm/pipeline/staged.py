@@ -331,12 +331,9 @@ class StagedPipeline:
                 g_list.append(np.asarray(und(jnp.asarray(images[i]), it)))
                 cu = np.asarray(und(jnp.asarray(rgb[i], jnp.float32), it))
                 c_list.append(np.clip(cu, 0, 255).astype(np.uint8))
-                try:
-                    from PIL import Image as _PILImage
-
-                    _PILImage.fromarray(c_list[-1]).save(und_dir / paths[i].name)
-                except Exception:
-                    pass
+                # Written as PNG whatever the input format, so no image
+                # library is needed.
+                im_io.write_png(und_dir / (paths[i].stem + ".png"), c_list[-1])
             images = np.stack(g_list)
             rgb = np.stack(c_list)
             intr_np = intr_np.copy()

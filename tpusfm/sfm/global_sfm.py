@@ -3,7 +3,7 @@
 Capability parity with the reference's GLOBAL engine option
 (ESfMEngine::GLOBAL wired at src/sparseBuilder/sparseBuilder.cpp:195-200,
 1516-1535 — OpenMVG's GlobalSfMReconstructionEngine with rotation/
-translation averaging), built TPU-first:
+translation averaging), built as batched array programs:
 
 1. Pairwise relative poses come from the same batched essential-RANSAC
    kernel the incremental bootstrap uses (one vmapped dispatch per pair

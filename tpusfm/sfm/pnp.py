@@ -4,7 +4,7 @@ Capability parity with the reference's registration step:
 cv::solvePnPRansac (100 iters, 8 px, conf .99 — src/actuator/
 SequentialActuator.h:175-191) and OpenMVG's P3P AC-RANSAC resection inside
 the incremental engine.  The minimal solver here is the 6-point DLT
-(linear, eigh-based — batches over hypotheses on TPU; a closed-form P3P
+(linear, eigh-based — batches over hypotheses on the device; a closed-form P3P
 is a later optimization), followed by a fixed-iteration Gauss-Newton
 refinement of (axis-angle, t) on the inlier set.
 """

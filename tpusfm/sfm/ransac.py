@@ -4,7 +4,7 @@ The reference's robust estimation is OpenMVG AC-RANSAC inside ``filter()``
 (src/sparseBuilder/sparseBuilder.cpp:1160-1237: F-model, 4 px, 2048 iters)
 and cv::findEssentialMat / solvePnPRansac in the hand-rolled path
 (src/actuator/SequentialActuator.h:108-110, 175-177).  Those are
-data-dependent sequential loops; on TPU the whole hypothesis set becomes one
+data-dependent sequential loops; here the whole hypothesis set becomes one
 batched array program (SURVEY.md §7 hard part 1):
 
   1. draw (n_iters, sample_size) correspondence indices at once,
@@ -159,7 +159,7 @@ def ransac_ac(
     smallest log-NFA wins, and eps_k* becomes the data-driven inlier
     threshold — tight for clean pairs, loose for noisy ones, with no knob.
 
-    On TPU the whole (I, N) log-NFA surface is one batched sort + cumulative
+    The whole (I, N) log-NFA surface is one batched sort + cumulative
     expression; the reference's sequential early-exit loop dissolves.
 
     alpha0: probability that a random correspondence has error <= 1 unit —

@@ -6,7 +6,7 @@ Capability parity with the reference's STELLAR engine option
 groups relative motions into "stellar pods" around each view, makes their
 translation scales consistent, then fuses globally).
 
-TPU-first design: instead of per-pod sequential bundle adjustments, the
+Batched design: instead of per-pod sequential bundle adjustments, the
 scale-consistency structure is a single sparse linear problem solved as an
 array program —
 

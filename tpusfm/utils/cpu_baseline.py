@@ -73,6 +73,48 @@ def _so3_right_jacobian_np(aa: np.ndarray) -> np.ndarray:
     return np.where(small, eye - 0.5 * K * th_, Jr)
 
 
+def _project_np(intr, Xc, model: str):
+    """Camera-frame points (O, 3) -> pixels (O, 2) in float64 under the
+    named camera model (the numpy twin of core.camera.camera_to_pixel):
+    "radial3" [fx fy cx cy k1 k2 k3], "brown" [.. k1 k2 k3 t1 t2] or
+    "fisheye" [fx fy cx cy k1..k4]."""
+    z = Xc[:, 2:3]
+    xn = Xc[:, :2] / np.where(np.abs(z) < 1e-8, 1e-8, z)
+    r2 = np.sum(xn * xn, axis=1, keepdims=True)
+    if model == "fisheye":
+        k1, k2, k3, k4 = (intr[:, 4 + i, None] for i in range(4))
+        r = np.sqrt(np.maximum(r2, 1e-18))
+        th = np.arctan(r)
+        t2 = th * th
+        xd = xn * (th * (1 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4)))) / r)
+    else:
+        k1, k2, k3 = (intr[:, 4 + i, None] for i in range(3))
+        xd = xn * (1 + r2 * (k1 + r2 * (k2 + r2 * k3)))
+        if model == "brown":
+            t1, t2 = intr[:, 7:8], intr[:, 8:9]
+            x, y = xn[:, 0:1], xn[:, 1:2]
+            xd = xd + np.concatenate([2 * t1 * x * y + t2 * (r2 + 2 * x * x),
+                                      t1 * (r2 + 2 * y * y) + 2 * t2 * x * y],
+                                     axis=1)
+    return xd * intr[:, 0:2] + intr[:, 2:4]
+
+
+def ba_cost_np(intr, cam_rot, cam_t, points, obs_cam, obs_pt, obs_uv,
+               obs_mask, huber: float = 4.0, model: str = "radial3") -> float:
+    """Huber reprojection cost of a BA problem in float64 numpy — the
+    reference the device solver's reported cost is checked against.
+    intr (C, E) per camera; masked observations contribute nothing."""
+    f64 = lambda a: np.asarray(a, np.float64)  # noqa: E731
+    ocam = np.asarray(obs_cam)
+    opt = np.asarray(obs_pt)
+    R = _so3_exp_np(f64(cam_rot))[ocam]
+    Xc = np.einsum("oij,oj->oi", R, f64(points)[opt]) + f64(cam_t)[ocam]
+    r = _project_np(f64(intr)[ocam], Xc, model) - f64(obs_uv)
+    n = np.linalg.norm(r, axis=-1)
+    c = np.where(n <= huber, 0.5 * n * n, huber * (n - 0.5 * huber))
+    return float(np.sum(c * np.asarray(obs_mask, np.float64)))
+
+
 def _schur_lm_ba(cam0, X0, ocam, opt, ouv, K, huber=4.0, max_iters=25,
                  rtol=3e-6):
     """Ceres-SPARSE_SCHUR-equivalent CPU bundle adjustment in numpy/BLAS:
@@ -390,7 +432,7 @@ def run_cpu_dense_baseline(images: np.ndarray, K: np.ndarray,
                            log=lambda *a: None) -> dict:
     """CPU dense-stage stand-in: cv2/numpy plane-sweep NCC depth maps at
     matched output density (one depth per pixel, same plane count / source
-    count / NCC window as the TPU sweep).
+    count / NCC window as the device sweep).
 
     Stand-in rationale: the reference's dense stage is the OpenMVS
     ``DensifyPointCloud`` binary (PatchMatch MVS, spawned at

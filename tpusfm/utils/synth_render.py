@@ -11,10 +11,62 @@ from __future__ import annotations
 
 import numpy as np
 
-try:
-    import cv2
-except ImportError:  # pragma: no cover - cv2 is in the base image
-    cv2 = None
+def _resize_cubic(src: np.ndarray, size: int) -> np.ndarray:
+    """Bicubic resize of a square image to (size, size): half-pixel centres,
+    Keys kernel with a = -0.75 and replicated borders (OpenCV's
+    INTER_CUBIC), as one separable matrix product."""
+    n = src.shape[0]
+    x = (np.arange(size) + 0.5) * (n / size) - 0.5
+    x0 = np.floor(x).astype(np.int64)
+    f = x - x0
+    a = -0.75
+    w = np.stack([((a * (f + 1) - 5 * a) * (f + 1) + 8 * a) * (f + 1) - 4 * a,
+                  ((a + 2) * f - (a + 3)) * f * f + 1,
+                  ((a + 2) * (1 - f) - (a + 3)) * (1 - f) * (1 - f) + 1], 1)
+    w = np.concatenate([w, 1.0 - w.sum(1, keepdims=True)], 1)
+    taps = np.clip(x0[:, None] + np.arange(-1, 3), 0, n - 1)
+    m = np.zeros((size, n))
+    np.add.at(m, (np.repeat(np.arange(size)[:, None], 4, 1), taps), w)
+    return (m @ src.astype(np.float64) @ m.T).astype(np.float32)
+
+
+def _perspective_transform(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """3x3 homography taking the four points src (4, 2) to dst (4, 2)."""
+    A = np.zeros((8, 8))
+    rhs = np.zeros(8)
+    for i, ((x, y), (u, v)) in enumerate(zip(src.astype(np.float64),
+                                             dst.astype(np.float64))):
+        A[i] = [x, y, 1, 0, 0, 0, -x * u, -y * u]
+        A[i + 4] = [0, 0, 0, x, y, 1, -x * v, -y * v]
+        rhs[i], rhs[i + 4] = u, v
+    return np.append(np.linalg.solve(A, rhs), 1.0).reshape(3, 3)
+
+
+def _warp_perspective(src: np.ndarray, H: np.ndarray, pix_h: np.ndarray,
+                      border: float) -> np.ndarray:
+    """dst(p) = src(H^-1 p), bilinear; taps outside src read `border`
+    (OpenCV's warpPerspective with INTER_LINEAR and BORDER_CONSTANT).
+    pix_h (H, W, 3) are the homogeneous dst pixels."""
+    q = pix_h @ np.linalg.inv(H).T
+    with np.errstate(divide="ignore", invalid="ignore"):
+        x = q[..., 0] / q[..., 2]
+        y = q[..., 1] / q[..., 2]
+    ok = np.isfinite(x) & np.isfinite(y) & (np.abs(x) < 1e9) & (np.abs(y) < 1e9)
+    x = np.where(ok, x, -2.0)
+    y = np.where(ok, y, -2.0)
+    sx = np.floor(x).astype(np.int64)
+    sy = np.floor(y).astype(np.int64)
+    fx = (x - sx).astype(np.float32)
+    fy = (y - sy).astype(np.float32)
+    h, w = src.shape
+
+    def tap(yy, xx):
+        inside = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+        return np.where(inside, src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)],
+                        np.float32(border))
+
+    return ((1 - fy) * ((1 - fx) * tap(sy, sx) + fx * tap(sy, sx + 1))
+            + fy * ((1 - fx) * tap(sy + 1, sx) + fx * tap(sy + 1, sx + 1)))
 
 
 def _multiscale_texture(size: int, seed: int) -> np.ndarray:
@@ -23,7 +75,7 @@ def _multiscale_texture(size: int, seed: int) -> np.ndarray:
     tex = np.zeros((size, size), np.float32)
     for s, w in ((4, 0.2), (8, 0.35), (16, 0.5), (32, 0.7), (64, 1.0)):
         n = rng.normal(size=(s, s)).astype(np.float32)
-        tex += w * cv2.resize(n, (size, size), interpolation=cv2.INTER_CUBIC)
+        tex += w * _resize_cubic(n, size)
     tex = (tex - tex.min()) / (tex.max() - tex.min() + 1e-9)
     return tex
 
@@ -60,8 +112,6 @@ def render_orbit_images(
     """Returns (images (V, H, W) float32 in [0,1], gt dict with
     intr (7,), R (V,3,3), t (V,3), centers (V,3))."""
     del n_dots
-    if cv2 is None:
-        raise RuntimeError("cv2 required for the synthetic renderer")
     R, t, centers = _orbit_poses(n_views, radius, arc_deg)
     intr = np.array([focal, focal, img_w / 2, img_h / 2, 0, 0, 0], np.float32)
     K = np.array([[focal, 0, img_w / 2], [0, focal, img_h / 2], [0, 0, 1]], np.float64)
@@ -100,11 +150,8 @@ def render_orbit_images(
             if np.any(proj[:, 2] <= 0.1):
                 continue
             img_quad = (proj[:, :2] / proj[:, 2:3]).astype(np.float32)
-            H = cv2.getPerspectiveTransform(tex_corners, img_quad)
-            warped = cv2.warpPerspective(
-                p["tex"], H, (img_w, img_h), flags=cv2.INTER_LINEAR,
-                borderMode=cv2.BORDER_CONSTANT, borderValue=-1.0,
-            )
+            H = _perspective_transform(tex_corners, img_quad)
+            warped = _warp_perspective(p["tex"], H, pix_h, border=-1.0)
             valid = warped >= 0
             if not valid.any():
                 continue
